@@ -6,7 +6,7 @@ eigen-projected per-element Hessians from
 ``baseline/neohookean_material.cpp:45-247`` / ``arap_material.cpp:63-119``).
 These exist for benchmark comparison — the ANM solver is the product.
 
-TPU-native structure: per-element quantities (energy density, PK1, the
+Device structure: per-element quantities (energy density, PK1, the
 9x9 dPsi/dF^2 blocks via basis-tangent ``jax.jvp``, the eigenvalue
 projection via batched ``eigh``, and the 12x12 element stiffnesses) are
 one jitted batched program; the data-dependent Newton/line-search/
@@ -181,10 +181,10 @@ class _Kernels:
         ``baseline/neohookean_material.cpp:160-247``).
 
         The 9x9 dP/dF JVP sweep and the G^T dPdF G contraction run on
-        the device; the eigen-projection runs in host NumPy — the TPU's
-        emulated-f64 batched ``eigh`` returns NaN on the near-degenerate
-        rest-state spectra (measured on v5e), and 9x9 LAPACK eigh for
-        ~40k blocks costs only ~0.2 s on the host."""
+        the device; the eigen-projection runs in host NumPy (LAPACK
+        ``eigh`` on the 9x9 blocks), which stays finite on the
+        near-degenerate rest-state spectra.  Whether a device ``eigh``
+        is accurate and faster there is not measured yet."""
         dPdF = self._dpdf_blocks(vtx)
         if self.proj:
             d = np.asarray(dPdF)

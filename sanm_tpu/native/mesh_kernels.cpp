@@ -3,7 +3,7 @@
 // Counterpart of the reference's C++ remap construction
 // (MeshShapeMatTrans / MeshForceOutputTrans constructors,
 // fea/mesh_template.h:19-161, and the SparseLinearDescCompressed
-// storage).  The TPU compute path is JAX/XLA; this module covers the
+// storage).  The device compute path is JAX/XLA; this module covers the
 // topology -> padded-index-array preprocessing that would otherwise be
 // Python loops over every tetrahedron.  Plain C ABI, loaded via ctypes;
 // sanm_tpu falls back to the pure-Python builders when the shared

@@ -4,7 +4,7 @@ The reference implements these as atomic operators with hand-written
 Taylor recurrences (``libsanm/oprs/linalg.cpp``, ``libsanm/tensor_linalg.cpp``).
 Here they are closed-form compositions of +,*,/ — their order-k Taylor
 coefficients then compose automatically in :mod:`sanm_tpu.taylor`, and
-XLA fuses the elementwise graphs into a handful of VPU kernels.  All
+XLA fuses the elementwise graphs into a handful of kernels.  All
 functions take ``(B, n, n)`` arrays with n in {1, 2, 3} (the FEA app only
 uses n == dim == 2 or 3; the reference's generic-n paths via LU/FFT exist
 for library completeness and are provided by :mod:`sanm_tpu.ops.polymat`).
@@ -124,7 +124,7 @@ def batched_mul_eye(s, dim):
 
 def _bmm(a, b):
     """Batched matmul at HIGHEST precision (Taylor coefficients cannot
-    survive the TPU's default bf16 MXU passes)."""
+    survive a backend's reduced-precision default f32 matmul passes)."""
     return jnp.einsum("...ij,...jk->...ik", a, b, precision="highest")
 
 

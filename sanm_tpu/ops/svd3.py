@@ -1,12 +1,12 @@
 """Batched small-matrix SVD via vectorized one-sided Jacobi.
 
-TPU-native replacement for LAPACK-style SVD on (B, 2, 2) and (B, 3, 3)
+Replacement for LAPACK-style SVD on (B, 2, 2) and (B, 3, 3)
 batches: XLA's generic ``jnp.linalg.svd`` lowers to a sequential
 QR-iteration loop per matrix, while the FEA workloads need the SVD of
 every element's deformation gradient (the reference runs Eigen's
 JacobiSVD in a per-tet loop, ``libsanm/tensor_svd.cpp:63-131``).  Here
 all matrices rotate in lockstep: a fixed number of cyclic one-sided
-Jacobi sweeps, each a handful of (B,)-wide VPU ops — no data-dependent
+Jacobi sweeps, each a handful of (B,)-wide elementwise ops — no data-dependent
 control flow, fully fusible, shardable over the batch.
 
 One-sided Jacobi works on the columns of A = M V directly (not on
@@ -31,9 +31,9 @@ def _rotate_pair(A, V, p, q):
 
     # rotation angle zeroing the (p,q) Gram entry.  Overflow-free form:
     # the classical tau = (aqq-app)/(2*apq) overflows for tiny apq, and
-    # the TPU's double-double f64 emulation turns that overflow into
-    # NaN (inf - inf in the low word; measured: 4/19552 rest-state
-    # elements NaN'd the ARAP Jacobian).  Using
+    # downstream arithmetic turns that overflow into NaN (inf - inf; a
+    # few rest-state elements of a real mesh NaN'd the ARAP Jacobian
+    # this way).  Using
     #   t = 2*apq*sign(d) / (|d| + sqrt(d^2 + 4*apq^2)),   d = aqq - app
     # never divides by apq; the denominator is >= |d| and the arguments
     # stay at the scale of the Gram entries.

@@ -61,8 +61,8 @@ def _svd_w_eval(m, require_rotation: bool):
     """Batched (B,n,n) SVD-W.  Returns (u, s, w)."""
     if m.shape[-1] in (2, 3):
         # vectorized one-sided Jacobi: every element rotates in lockstep
-        # (VPU work), vastly faster than the generic QR-iteration SVD on
-        # TPU batches
+        # (elementwise work XLA fuses), instead of the generic batched
+        # QR-iteration SVD
         from .svd3 import svd_batched_small
 
         u, s, vh = svd_batched_small(m)
@@ -201,12 +201,12 @@ ad.primitive_jvps[svd_w_p] = _svd_w_jvp
 
 
 def _use_vpu(a, b):
-    """Emulated-f64 ``dot_general`` on (..., 3, 3) operands forces a
-    T(4,128) minor-dim layout with ~57x tile padding on TPU — XLA's
-    remat pass then materializes the (N+1, B, 3, 3) history buffers in
-    that layout and the order-20 ARAP step program exceeds HBM
-    (measured 33 GB at 42k tets).  Tiny matmuls are VPU work anyway:
-    broadcast-multiply-sum keeps the natural elementwise layout."""
+    """Whether an f64 matmul on (..., <=4, <=4) operands runs as
+    broadcast-multiply-sum instead of ``dot_general``: the tiny products
+    then stay elementwise work in the natural (N+1, B, 3, 3) buffer
+    layout, which XLA fuses into the surrounding kernels, rather than
+    one batched dot per 3x3 product.  Which form wins on a GPU is not
+    measured yet."""
     return (
         a.dtype == jnp.float64 or b.dtype == jnp.float64
     ) and a.shape[-1] <= 4

@@ -5,7 +5,8 @@ Replaces the reference thread data-parallel engine
 over a 1-D device mesh axis ``elems``.  All per-element work (Taylor
 graph passes, per-element Jacobians, element-stiffness contraction)
 runs SPMD; the scatter-add assembly and the scalar reductions become
-XLA collectives over ICI; the dense factorization runs replicated.
+XLA collectives over the device interconnect; the dense factorization
+runs replicated.
 """
 
 from __future__ import annotations

@@ -4,9 +4,9 @@ Reference counterpart: the MKL-PARDISO sparse LDL^T
 (``libsanm/sparse_solver.cpp:327-421`` — analyze once, factorize once
 per continuation step, backsolve once per Taylor order).  PARDISO's
 supernodal elimination is a CPU design: pointer-chased fronts, tiny
-irregular dense blocks, threads.  The TPU-native equivalent built here
-keeps the *analyze-once* structure but maps the numeric work onto the
-MXU with static shapes:
+irregular dense blocks, threads.  The device equivalent built here
+keeps the *analyze-once* structure but maps the numeric work onto
+dense matmuls with static shapes:
 
 * **Symbolic phase (host, once per topology)**: the stiffness sparsity
   is topology-static, so a reverse-Cuthill-McKee ordering of the DOF
@@ -24,15 +24,14 @@ MXU with static shapes:
 * **Numeric phase (device, once per restart)**: one ``lax.scan`` per
   run over its block columns; each step is one s x s Cholesky, one
   s x s *triangular inversion*, one batched panel multiply, and one
-  (s, w_r*s) x (w_r*s, w_r*s) MXU trailing update — all static
+  (s, w_r*s) x (w_r*s, w_r*s) matmul trailing update — all static
   shapes, no data-dependent control flow.
 * **Backsolve (device, once per Taylor order)**: blocked forward /
   backward substitution, one column panel per step.  The diagonal
   blocks are stored INVERTED (computed once at factor time), so the
-  substitutions are pure matmuls — no per-step ``solve_triangular``,
-  whose XLA lowering is an internal blocked loop that dominated the
-  per-step latency of the sequential substitution passes.  The whole
-  factor streams through HBM once per substitution pass.
+  substitutions are pure matmuls — no per-step ``solve_triangular``
+  inside the sequential substitution passes.  The whole factor streams
+  through device memory once per substitution pass.
 
 Storage layouts:
 
@@ -47,15 +46,17 @@ Storage layouts:
   block-column panel stacks ``L[r] (len_r, (w_r+1)s, s)`` — panel
   ``j`` stacks ``inv(L[j,j])`` (rows 0:s) over the ``w_r``
   subdiagonal blocks ``L[j+1+m, j]``.  Each run keeps ONE static
-  layout, sliced only along the leading axis (a single uniform-band
-  predecessor of this design made XLA materialize a 2.8 GB transposed
-  factor copy per solve — the layout rule survives here).  Skyline
+  layout, sliced only along the leading axis (a layout that needs a
+  transpose makes XLA materialize a transposed factor copy per
+  solve).  Skyline
   panels also shrink the factor memory to the profile's true size
   (~2x at armadillo scale).
 
 Precision mirrors :class:`~sanm_tpu.solver.linear.DeviceCholSolver`:
-f32 factorization (MXU) + f64 iterative refinement through the exact
-sparse operator (``chol_refine_solve``), on the Jacobi-equilibrated,
+f32 factorization with every dot at ``F32_PRECISION`` (full f32
+products, never the backend's TF32 default) + f64 iterative refinement
+through the exact sparse operator (``chol_refine_solve``), on the
+Jacobi-equilibrated,
 sign-flipped system (elastic stiffness is negative definite at stable
 states).  An indefinite state propagates NaN through the factor;
 callers detect it (``band_factor_ok``) and fall back to host LU
@@ -74,6 +75,7 @@ import jax.scipy.linalg as jsl
 from jax import lax
 
 from ..utils import sanm_assert
+from .linear import F32_PRECISION
 
 
 class BandPlan:
@@ -106,7 +108,7 @@ class BandPlan:
 
         # block size: smallest power of two (>=256) with <=3 panel
         # blocks in the max band — bigger panels mean fewer sequential
-        # steps and larger MXU ops at slightly more junk FLOPs.
+        # steps and larger matmuls at slightly more junk FLOPs.
         # SANM_BAND_S overrides for A/B (skyline width resolution vs
         # step count).
         s = int(os.environ.get("SANM_BAND_S", "0"))
@@ -282,13 +284,13 @@ def band_cholesky(plan: BandPlan, Bb):
                 for m in range(wr)
             ])
             # T[m] = P[m] @ inv(Ljj)^T  (== solve(Ljj, P[m]^T)^T)
-            T = jnp.einsum("mab,cb->mac", P, inv, precision="highest")
+            T = jnp.einsum("mab,cb->mac", P, inv, precision=F32_PRECISION)
             # U[m] = T[m] @ [T_0 .. T_{wr-1}]^T as (s, wr*s); block
             # (j+1+m, j+1+p) sits at window offset (w-m+p)*s.  Only
             # p <= m blocks are in the lower band: a contiguous strip
             # of static width (m+1)s starting at (w-m)s.
             U = jnp.einsum(
-                "mab,pcb->mapc", T, T, precision="highest"
+                "mab,pcb->mapc", T, T, precision=F32_PRECISION
             ).reshape(wr, s_blk, wr * s_blk)
             for m in range(wr):
                 r0 = (j + 1 + m) * s_blk
@@ -333,13 +335,14 @@ def band_tri_solve(plan: BandPlan, L, rhs):
             c0 = j * s_blk
             inv, Pm = Pf[:s_blk], Pf[s_blk:]
             rj = lax.dynamic_slice(r, (c0,), (s_blk,))
-            yj = inv @ rj
+            yj = jnp.matmul(inv, rj, precision=F32_PRECISION)
             if wr:
                 seg = lax.dynamic_slice(
                     r, (c0 + s_blk,), (wr * s_blk,)
                 )
                 r = lax.dynamic_update_slice(
-                    r, seg - Pm @ yj, (c0 + s_blk,)
+                    r, seg - jnp.matmul(Pm, yj, precision=F32_PRECISION),
+                    (c0 + s_blk,),
                 )
             return lax.dynamic_update_slice(r, yj, (c0,)), None
 
@@ -356,8 +359,11 @@ def band_tri_solve(plan: BandPlan, L, rhs):
                 xs_below = lax.dynamic_slice(
                     y, (c0 + s_blk,), (wr * s_blk,)
                 )
-                yj = yj - xs_below @ Pm
-            xj = yj @ inv  # inv(Ljj)^T @ yj
+                yj = yj - jnp.matmul(
+                    xs_below, Pm, precision=F32_PRECISION
+                )
+            # inv(Ljj)^T @ yj
+            xj = jnp.matmul(yj, inv, precision=F32_PRECISION)
             return lax.dynamic_update_slice(y, xj, (c0,)), None
 
         y = lax.scan(

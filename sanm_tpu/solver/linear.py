@@ -7,21 +7,32 @@ factorization done once per continuation step, ``solve()`` = cheap
 back-substitution repeated once per Taylor order
 (``libsanm/anm.cpp:223-291`` does 1 ``prepare`` + N ``solve``).
 
-TPU constraints shape the design: XLA on this TPU compiles f64
-QR/Cholesky but not f64 LU (probed), and there is no sparse direct
-factorization primitive.  Paths:
+XLA has no sparse direct factorization primitive.  Paths:
 
 * :class:`DenseFactorSolver` — dense QR (general) or Cholesky
   (``A^T A + lambda I`` Tikhonov mode, reference
   ``sparse_solver.cpp:327-421``); exact, for small/medium systems.
 * :class:`HostLUSolver` — host scipy sparse LU via ordered
   ``io_callback``; the structural PARDISO analog for large systems.
+* :class:`DeviceCholSolver` — dense f32 Cholesky of the equilibrated
+  stiffness on the device + f64 iterative refinement.
 * :class:`SparseCG` — device-resident preconditioned CG on the
-  assembled CSR operator (gather + VPU + segment-add matvec, all
+  assembled CSR operator (gather + multiply + segment-add matvec, all
   shardable over the element axis).
 
 All solvers are jit-traceable: construction and solves happen inside the
 jitted expansion kernel.
+
+Precision of the float32 factor routes (``DenseFactorSolver``'s mixed
+mode, ``DeviceCholSolver``, :class:`~sanm_tpu.solver.band.DeviceBandCholSolver`,
+``SparseCG``'s preconditioner): every dot passes
+``precision=F32_PRECISION`` (``HIGHEST``, full f32 products) so none
+inherits the backend default, which on an NVIDIA GPU may be TF32.  The
+factorizations and triangular substitutions themselves are cuSOLVER /
+cuBLAS calls (``potrf``, ``geqrf``, ``trsm``) on the GPU.  The f64
+refinement then brings each solve to a relative error of 1e-10 or
+better against SciPy ``splu`` on the same CSR matrix (checked at
+armadillo-small n by ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -36,10 +47,13 @@ import numpy as np
 
 from ..utils import SANMError, sanm_assert
 
+#: precision of every dot inside the float32 factor routes (see the
+#: module docstring)
+F32_PRECISION = lax.Precision.HIGHEST
+
 
 def _mv(A, x):
-    """Exact-precision f64 matvec (TPU's default f64 dot emulation is
-    not accurate enough for refinement residuals)."""
+    """Exact-precision f64 matvec for refinement residuals."""
     return jnp.einsum("ij,j->i", A, x, precision="highest")
 
 
@@ -54,16 +68,15 @@ def host_splu(Acsc):
     numerically near-SPD along stable continuation branches.  SuperLU's
     ``SymmetricMode`` (MMD ordering on A+A^T + near-diagonal threshold
     pivoting) then keeps the symbolic MMD fill, where the default COLAMD
-    path pays partial-pivoting fill: measured 2.3-2.4x faster
-    factorization on the armadillo-small stiffness pattern
-    (``scripts/splu_reuse_probe.py`` leg c: 0.51 s vs 1.24 s host-solo).
-    Plain ``permc_spec='MMD_AT_PLUS_A'`` WITHOUT symmetric mode is the
+    path pays partial-pivoting fill and factorizes the armadillo-small
+    stiffness pattern about half as fast.  Plain
+    ``permc_spec='MMD_AT_PLUS_A'`` WITHOUT symmetric mode is the
     opposite trap — full partial pivoting destroys the symmetric
-    ordering (measured 6.5 s vs 1.7 s on the real armadillo stiffness).
+    ordering and is slower still.
 
     Threshold pivoting is a numerical gamble on indefinite states, so
     the result is validated with one deterministic random-RHS solve
-    (cost: one ~30 ms backsolve + one spmv per factorization); on
+    (cost: one backsolve + one spmv per factorization); on
     relative residual > 1e-12 — or any SuperLU error — it falls back to
     the default COLAMD factorization.  ``SANM_SPLU_SYM=0`` disables the
     symmetric-mode attempt entirely.  This is the closest scipy analog
@@ -102,9 +115,8 @@ class DenseFactorSolver:
     mirroring the reference's ``xcoeff_l2_penalty``
     (``libsanm/sparse_solver.cpp:327-421`` via ``mkl_sparse_syrk``).
 
-    ``mixed_precision``: factorize in float32 (MXU speed; measured 45x
-    faster than the emulated f64 QR on TPU and ~30x faster to compile)
-    and recover float64 accuracy with iterative refinement — each step
+    ``mixed_precision``: factorize in float32 and recover float64
+    accuracy with iterative refinement — each step
     computes the residual with exact f64 matvecs and back-substitutes it
     through the f32 factors.  Converges to ~1e-15 relative residual as
     long as kappa(A) stays below ~1e7; the refinement loop is a
@@ -149,7 +161,11 @@ class DenseFactorSolver:
             y = jsl.solve_triangular(self._chol, bf, lower=True)
             x = jsl.solve_triangular(self._chol.T, y, lower=False)
         else:
-            x = jsl.solve_triangular(self._r, self._q.T @ bf, lower=False)
+            x = jsl.solve_triangular(
+                self._r,
+                jnp.matmul(self._q.T, bf, precision=F32_PRECISION),
+                lower=False,
+            )
         return x.astype(b.dtype) * safe
 
     def solve(self, b):
@@ -215,7 +231,7 @@ class HostLUSolver:
     wrapper (``libsanm/sparse_solver.cpp:327-421``): one analysis +
     factorization per continuation step, then one cheap back-substitution
     per Taylor order.  The factorization runs on the host CPU while the
-    TPU handles all batched element work; only the (nnz,) value vector
+    device handles all batched element work; only the (nnz,) value vector
     and the (n,) right-hand sides cross the boundary.
     """
 
@@ -306,19 +322,15 @@ def blocked_cholesky(A, block: int = 2048):
     """In-place right-looking blocked Cholesky of an SPD matrix.
 
     ``jnp.linalg.cholesky`` materializes ~3 full n^2 buffers (input,
-    workspace, output), which caps :class:`DeviceCholSolver` at n~25k
-    on a 16 GB chip.  This version runs a ``fori_loop`` over column
+    workspace, output).  This version runs a ``fori_loop`` over column
     panels carrying ONE (n, n) buffer, with the trailing update applied
     one (block, n) row panel at a time: per-step peak = the carry plus
-    two (block, n) panels (~0.7 GB at n=43k/block=2048).  An earlier
-    form computed the update as one full-width masked matmul, whose
-    (n, n) f32 product buffer put the peak at 2x the carry — measured
-    OOM at n=41k (armadillo: 7.4 GB carry + 7.4 GB product + ~2.2 GB
-    triangular-solve panel temps > 16 GB HBM).  The row-panel matmuls
-    are still full-width (static shapes, MXU-friendly): ~n^3/2 f32
-    FLOPs at n=41k (~4e13), i.e. seconds on a v5e, comparable to the
-    host splu it replaces while removing every per-order host
-    crossing.  Only the lower triangle of the result is meaningful.
+    two (block, n) panels (~0.7 GB at n=43k/block=2048).  A full-width
+    masked-matmul update would add an (n, n) f32 product buffer (7.4 GB
+    at n=41k).  The row-panel matmuls are still full-width (static
+    shapes): ~n^3/2 f32 FLOPs at n=41k (~4e13).  The row-panel layout
+    is also what lets the factor stay row-sharded over a device mesh.
+    Only the lower triangle of the result is meaningful.
     NaNs from an indefinite input propagate to the factor (callers
     detect via ``isfinite`` on the diagonal)."""
     n = A.shape[0]
@@ -348,7 +360,7 @@ def blocked_cholesky(A, block: int = 2048):
         def row_update(i, A):
             r0 = i * block
             Trow = lax.dynamic_slice(Tm, (r0, 0), (block, block))
-            upd = jnp.matmul(Trow, Tm.T, precision="highest")
+            upd = jnp.matmul(Trow, Tm.T, precision=F32_PRECISION)
             Arow = lax.dynamic_slice(A, (r0, 0), (block, npad))
             return lax.dynamic_update_slice(A, Arow - upd, (r0, 0))
 
@@ -365,7 +377,7 @@ def blocked_tri_solve_lower(L, b, block: int = 2048):
     """Forward substitution ``L y = b`` by column panels.
 
     ``solve_triangular`` on a device-mesh-sharded ``L`` makes GSPMD
-    all-gather the FULL factor per solve (n^2 traffic — 23.7 GB at
+    all-gather the FULL factor per solve (n^2 traffic — 23.7 GB f32 at
     human scale), defeating the point of sharding it.  The blocked
     form only ever touches an (n, block) panel per step: the panel
     matvec stays row-sharded (no factor movement) and the only
@@ -384,7 +396,9 @@ def blocked_tri_solve_lower(L, b, block: int = 2048):
         yj = jsl.solve_triangular(Ljj, bj, lower=True)
         col = lax.dynamic_slice(L, (0, c0), (n, block))
         below = rows >= c0 + block
-        b = b - jnp.where(below, col @ yj, 0.0)
+        b = b - jnp.where(
+            below, jnp.matmul(col, yj, precision=F32_PRECISION), 0.0
+        )
         return lax.dynamic_update_slice(b, yj, (c0,))
 
     return lax.fori_loop(0, nb, body, b)
@@ -406,7 +420,9 @@ def blocked_tri_solve_upper_T(L, y, block: int = 2048):
         xj = jsl.solve_triangular(Ljj.T, yj, lower=False)
         rowp = lax.dynamic_slice(L, (c0, 0), (block, n))
         above = rows < c0
-        y = y - jnp.where(above, xj @ rowp, 0.0)
+        y = y - jnp.where(
+            above, jnp.matmul(xj, rowp, precision=F32_PRECISION), 0.0
+        )
         return lax.dynamic_update_slice(y, xj, (c0,))
 
     return lax.fori_loop(0, nb, body, y)
@@ -433,8 +449,8 @@ def blocked_chol_solve(L, b, block: int = 2048):
     return x[:n]
 
 
-# above this size jnp.linalg.cholesky's ~3 n^2 buffers exceed a 16 GB
-# chip; switch to the single-buffer blocked factorization
+# above this size switch from jnp.linalg.cholesky's ~3 n^2 buffers to
+# the single-buffer blocked factorization
 _BLOCKED_CHOL_MIN_N = 16384
 
 
@@ -472,9 +488,11 @@ def chol_refine_solve(L, s, data, b, matvec, refine_steps: int,
     Refinement exits early (``lax.while_loop``, all on device) once
     ``||b - A x|| <= rtol * ||b||`` — an f32 factor of the
     equilibrated system typically converges in 2-3 passes, and each
-    backsub streams the whole factor through HBM, so the fixed
-    8-trip loop paid ~3x the needed traffic (VERDICT r3 weak #5).
-    ``rtol=0`` restores the fixed-trip behavior.
+    backsub streams the whole factor through device memory, so a fixed
+    8-trip loop pays ~3x the needed traffic.  ``rtol=0`` restores the
+    fixed-trip behavior.  ``with_resid`` also returns the final relative
+    residual and the number of refinement passes taken after the first
+    backsub.
 
     ``tri_solve(L, rhs)`` overrides the two dense ``solve_triangular``
     passes — :func:`blocked_chol_solve` keeps a mesh-sharded factor
@@ -516,7 +534,7 @@ def chol_refine_solve(L, s, data, b, matvec, refine_steps: int,
         rel = jnp.linalg.norm(b - matvec(data, x)) / jnp.maximum(
             jnp.linalg.norm(b), 1e-300
         )
-        return x, rel
+        return x, rel, jnp.int32(refine_steps)
 
     thresh = rtol * jnp.linalg.norm(b)
     r0 = b - matvec(data, x0)
@@ -531,29 +549,30 @@ def chol_refine_solve(L, s, data, b, matvec, refine_steps: int,
         x = x + backsub(r)
         return i + 1, x, b - matvec(data, x)
 
-    _, x, r = jax.lax.while_loop(cond, body, (jnp.int32(0), x0, r0))
+    steps, x, r = jax.lax.while_loop(cond, body, (jnp.int32(0), x0, r0))
     if not with_resid:
         return x
     rel = jnp.linalg.norm(r) / jnp.maximum(jnp.linalg.norm(b), 1e-300)
-    return x, rel
+    return x, rel, steps
 
 
 class DeviceCholSolver:
-    """TPU-resident factorize-once / backsolve-N-times for mid-size
+    """Device-resident factorize-once / backsolve-N-times for mid-size
     systems: dense f32 Cholesky of the (equilibrated, symmetrized)
-    stiffness on the accelerator + fixed-trip f64 iterative refinement
-    through the exact sparse operator.
+    stiffness on the accelerator + f64 iterative refinement through the
+    exact sparse operator.
 
     This keeps the reference's PARDISO structure
     (``libsanm/sparse_solver.cpp:154-180,327-421``: one analysis +
     factorization per continuation step, then one cheap backsolve per
     Taylor order) entirely on the device — no per-order host crossing,
-    unlike :class:`HostLUSolver` whose every solve pulls the RHS to a
-    1-core host.  Mapping to the hardware: the O(n^3) factorization and
-    the O(n^2) triangular solves are MXU/HBM-bandwidth work; the O(nnz)
-    refinement matvec is the assembler's gather/scatter.
+    unlike :class:`HostLUSolver` whose every solve pulls the RHS to the
+    host.  Mapping to the hardware: the O(n^3) factorization is matmul
+    work, the O(n^2) triangular solves are memory-bandwidth work; the
+    O(nnz) refinement matvec is the assembler's gather/scatter.
+    Precision: see the module docstring (``F32_PRECISION``).
 
-    Scope: dense L is n^2 f32 — fits HBM to n ~ 25k (bob-scale).  The
+    Scope: dense L is n^2 f32 (6.7 GB at armadillo-small n=41k).  The
     elastic stiffness is symmetric; it is negative definite at stable
     states (A = d force/dx = -K), so the factorization runs on -A_s and
     flips the sign back.  ``factor_ok()`` reports a finite factor; the
@@ -572,9 +591,9 @@ class DeviceCholSolver:
 
         shard = None
         if mesh is not None:
-            # multi-chip mode: the n^2 factor is row-sharded over the
-            # mesh axis (n^2/devices per chip — past one chip's HBM
-            # ceiling); factorization and substitutions use the
+            # multi-device mode: the n^2 factor is row-sharded over the
+            # mesh axis (n^2/devices per device — past one device's
+            # memory); factorization and substitutions use the
             # blocked panel forms so the factor never moves whole
             from jax.sharding import NamedSharding, PartitionSpec
 
@@ -635,8 +654,8 @@ class DeviceCholSolver:
 
 class SparseCG:
     """Device-side preconditioned CG on the assembled CSR operator with
-    a block-Jacobi preconditioner built once per step.  TPU-native scale
-    path: the matvec is gather + VPU + segment-add, all shardable."""
+    a block-Jacobi preconditioner built once per step.  The matvec is
+    gather + multiply + segment-add, all shardable."""
 
     def __init__(self, assembler, data, block: int = 3,
                  tol: float = 1e-13, max_iter: int = 2000,
@@ -657,7 +676,8 @@ class SparseCG:
     def _precond(self, r):
         nb = self.n // self.block
         return jnp.einsum(
-            "nij,nj->ni", self._binv, r.reshape(nb, self.block)
+            "nij,nj->ni", self._binv, r.reshape(nb, self.block),
+            precision=F32_PRECISION,
         ).reshape(-1)
 
     def _mv(self, x):
@@ -670,12 +690,9 @@ class SparseCG:
 
     def _chunk_kernel(self, n_steps):
         """Jitted fixed-trip CG chunk: ``lax.fori_loop`` with converged
-        iterations frozen.  A data-dependent ``lax.while_loop`` CG is
-        mathematically identical but takes this XLA/TPU toolchain ~32
-        minutes to compile at n=20k (measured, scripts/repro_pcg_crash
-        .py) vs ~4 s for the fori form; the freeze guard is required
-        because unguarded iterations past convergence turn alpha/beta
-        into 0/0 and diverge (measured rel-res 2.5e6 after 200 steps).
+        iterations frozen, host-checked for convergence between chunks.
+        The freeze guard is required because unguarded iterations past
+        convergence turn alpha/beta into 0/0 and diverge.
         """
         if getattr(self, "_chunk_jit", None) is not None:
             return self._chunk_jit
@@ -686,7 +703,8 @@ class SparseCG:
             def pre(v):
                 nb = self.n // self.block
                 return jnp.einsum(
-                    "nij,nj->ni", binv, v.reshape(nb, self.block)
+                    "nij,nj->ni", binv, v.reshape(nb, self.block),
+                    precision=F32_PRECISION,
                 ).reshape(-1)
 
             def mv(v):

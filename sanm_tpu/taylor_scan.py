@@ -2,9 +2,8 @@
 
 The plain engine (:mod:`sanm_tpu.taylor`) unrolls the order loop at
 trace time — transparent, but the XLA program grows as O(order^2)
-convolution terms, and the resulting HLO is too large for expensive
-compile environments (the remote-TPU compile of an order-20 FEA
-expansion exhausts the compiler).  This module re-expresses orders
+convolution terms, so the compile time of an order-20 FEA expansion
+grows with it.  This module re-expresses orders
 k >= 2 as a ``lax.scan`` whose body is traced ONCE:
 
 * every series that the recurrences need lives in a preallocated
@@ -186,32 +185,8 @@ class ScanEngine:
 
     @staticmethod
     def _wreduce(w, terms):
-        """Masked window reduction ``sum_i w[i] * terms[i]``.
-
-        Two lowerings: ``tensordot`` (a dot_general over the window
-        axis) and ``bsum`` (broadcast-multiply + reduce-sum).  On TPU
-        the emulated-f64 dot_general can hit a pathological minor-dim
-        retiling (measured 9.1 s vs 39 ms for the same three
-        human-scale island convolutions standalone,
-        ``scripts/ds_conv_probe2.py``); inside the fused step program
-        XLA usually fuses it away, so the default is chosen per dtype:
-        bsum for f64, tensordot otherwise.  ``SANM_CONV_REDUCE``
-        overrides for A/B."""
-        import os
-
-        mode = os.environ.get("SANM_CONV_REDUCE", "auto")
-        if mode == "auto":
-            # the retiling pathology is a TPU emulated-f64 artifact; on
-            # the CPU backend (tests, virtual meshes) native-f64 dots win
-            mode = (
-                "bsum"
-                if terms.dtype == jnp.float64
-                and jax.default_backend() != "cpu"
-                else "tensordot"
-            )
-        if mode == "bsum":
-            wb = w.reshape((-1,) + (1,) * (terms.ndim - 1))
-            return jnp.sum(wb * terms, axis=0)
+        """Masked window reduction ``sum_i w[i] * terms[i]`` (a
+        dot_general over the window axis)."""
         return jnp.tensordot(w, terms, axes=(0, 0))
 
     def pair_conv(

@@ -5,7 +5,8 @@ Counterpart of the reference's single-path PARDISO benchmarking: here
 the factorize-once/N-backsolve structure is provided by several
 backends (``sanm_tpu/solver/linear.py``) and the ``auto`` policy picks
 by size/backend; this script produces the measured table that justifies
-the policy (VERDICT round-1 item 4).
+the policy.  Each backend runs in its own process, one after another, so
+no two processes share a card.
 
 Runs one mesh x energy gravity solve per backend in a fresh
 subprocess, reporting warm re-solve wall time, iterations, and final

@@ -250,9 +250,8 @@ def main():
         print(f"\nPade benefit: {mean:.2f} iterations saved on average "
               f"({len(saved)} cells)")
 
-    # Pade acceptance diagnostics (per-restart pade_log; VERDICT r2
-    # item 8: is the acceptance rejecting extensions the reference
-    # would take?)
+    # Pade acceptance diagnostics (per-restart pade_log: is the
+    # acceptance rejecting extensions the reference would take?)
     n_acc = n_rej = 0
     gains = []
     rejects = defaultdict(int)
@@ -316,8 +315,9 @@ def main():
         except Exception as e:  # pragma: no cover
             print("  (plot skipped: %s)" % e)
 
-    # problem-size scaling curves (run_size_scaling.py; the TPU-native
-    # counterpart of the reference thread-scalability figure): one
+    # problem-size scaling curves (run_size_scaling.py; the
+    # one-accelerator counterpart of the reference thread-scalability
+    # figure): one
     # combined plot over every size_scaling_*.json found
     size_files = sorted(glob.glob(os.path.join(root, "size_scaling_*.json")))
     series = []

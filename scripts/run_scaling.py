@@ -8,8 +8,9 @@ ideal 1/x).  Here the scaling axis is JAX devices: the element batch is
 sharded over a 1-D ``jax.sharding.Mesh`` (``sanm_tpu.parallel.ElemSharding``)
 and each device count is measured in a fresh subprocess.
 
-On real multi-chip TPU hardware, run with ``--platform tpu`` and the
-device counts available on the slice.  Without multi-chip hardware, a
+On a multi-GPU host, run with ``--platform gpu`` and the device counts
+available there (each count in its own process, one after another, so
+no two processes share a card).  Without multi-GPU hardware, a
 virtual CPU mesh (``--xla_force_host_platform_device_count``) validates
 the SPMD path; note that virtual devices share the host's physical
 cores, so the curve only reflects real scaling when the host has at
@@ -43,11 +44,8 @@ jax.config.update("jax_enable_x64", True)
 sys.path.insert(0, %(repo)r)
 import sanm_tpu
 sanm_tpu.enable_compile_cache()
-from sanm_tpu.fea.app import TASKS, read_json, run_anm_eqn, \
-    setup_solver_param, make_material_property, setup_boundary_by_config, \
-    _gravity_load
-from sanm_tpu.fea.mesh import TetrahedralMesh
-from sanm_tpu.fea.model import DeformableBody
+from sanm_tpu.fea.app import gravity_body, read_json, run_anm_eqn, \
+    setup_solver_param
 from sanm_tpu.fea.material import EnergyModel
 from sanm_tpu.parallel import ElemSharding
 from sanm_tpu.solver import ANMEqnSolver
@@ -55,20 +53,8 @@ from sanm_tpu.solver import ANMEqnSolver
 config = read_json(os.path.join(%(repo)r, "configs", mesh_cfg))
 config["energy_model"] = energy
 config["order"] = order
-material = make_material_property(config["material"], need_density=True)
-mesh_file = os.path.join(%(repo)r, "configs", config["mesh"])
-mesh = TetrahedralMesh.from_tetgen_files(mesh_file)
-body = DeformableBody(material, mesh)
-if "scale" in config:
-    mesh.resize_inplace(float(config["scale"]))
-g_acc = np.asarray(config["g"], float)
-bou = mesh_file + ".bou"
-if os.path.exists(bou):
-    for tok in open(bou).read().split():
-        body.coord_fixed_mask[int(tok) - 1, :] = True
-else:
-    setup_boundary_by_config(body, -g_acc, config)
-f_load_full, _ = _gravity_load(mesh, material, g_acc)
+_, body, f_load_full, _ = gravity_body(
+    config, os.path.join(%(repo)r, "configs"))
 
 em = EnergyModel.from_name(config["energy_model"])
 model = body.make_forward(em)
@@ -105,7 +91,6 @@ def run_one(n_dev, args):
             env["XLA_FLAGS"] = (
                 flags + " --xla_force_host_platform_device_count=%d" % n_dev
             ).strip()
-        env["SANM_PLATFORM"] = "cpu"
         env["JAX_PLATFORMS"] = "cpu"
     out = subprocess.run(
         [sys.executable, "-c", CHILD % {"repo": REPO},
@@ -128,7 +113,7 @@ def main():
     p.add_argument("--mesh", default="armadillo_small.json")
     p.add_argument("--energy", default="neohookean_c")
     p.add_argument("--order", type=int, default=20)
-    p.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    p.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     p.add_argument("--timeout", type=int, default=7200)
     p.add_argument("--out", default="scaling.json")
     args = p.parse_args()
@@ -146,7 +131,7 @@ def main():
                 "order": args.order, "platform": args.platform,
                 "host_cores": os.cpu_count(),
                 "valid_parallel_timing": (
-                    args.platform == "tpu"
+                    args.platform == "gpu"
                     or os.cpu_count() >= max(args.devices)
                 ),
                 "results": results,

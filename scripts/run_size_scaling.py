@@ -1,16 +1,16 @@
 #!/usr/bin/env python
-"""Problem-size scaling curve on ONE accelerator: the TPU-native
+"""Problem-size scaling curve on ONE accelerator: the one-device
 counterpart of the reference's thread-scalability experiment.
 
 The reference scales the *machine* (1..32 MKL threads on a fixed
 armadillo mesh, ``render/run_armadillo_exprs.sh:30-36``); its
 scalability mesh ``Armadillo.1`` is not shipped (PARITY.md round 4).
-On TPU the natural scaling axis is the *problem*: a fixed chip, meshes
+On one device the natural scaling axis is the *problem*: a fixed card, meshes
 of growing size.  This script grows the ``test_cuboid`` beam
 (``fea/main.cpp:623-663``) along x at constant cross-section, so the
 reverse-Cuthill-McKee semi-bandwidth is constant and the banded device
 Cholesky (``solver/band.py``) is O(n) in both FLOPs and factor bytes —
-the regime where a sparse direct method on the MXU shines.
+the regime where a banded direct method on the device shines.
 
 Each size runs in a fresh subprocess (fresh XLA programs; the compile
 cache makes repeat invocations cheap).  Reports the best-of-N warm
@@ -18,7 +18,7 @@ re-solve per size (``SANM_WARM_TIMING``), plus factor stats.
 
 Usage:
     python scripts/run_size_scaling.py --xs 20 40 80 160 320 \
-        --solver band_chol --out results_tpu/size_scaling_band.json
+        --solver band_chol --out size_scaling_band.json
 """
 
 import argparse

@@ -86,7 +86,7 @@ def test_unknown_func_raises(workdir, tmp_path):
 def test_warm_resolve_compile_guard(workdir, monkeypatch, tmp_path):
     """Hot-loop discipline tripwire (SANM_COMPILE_GUARD): a warm
     re-solve on a long-lived solver must not trigger any new XLA
-    compilation — the TPU analog of the reference's
+    compilation — the XLA analog of the reference's
     allocation-in-hot-loop guard (EIGEN_RUNTIME_NO_MALLOC,
     libsanm/tensor_impl_helper.h:12,45-64)."""
     cfg = {

@@ -2,10 +2,10 @@
 still drive the error-correcting continuation to the f64 residual
 target (reference convergence target force-RMS 1e-10, fea/main.cpp:28).
 
-TPU f64 is emulated (~20x native f32); production solves there run the
-high-order Taylor passes in f32 (HyperParam.graph_dtype) while the
-Jacobian, the factorization, and all residual evaluations stay f64 —
-the per-restart residual re-targeting absorbs the coefficient noise.
+``HyperParam.graph_dtype="f32"`` runs the high-order Taylor passes in
+f32 while the Jacobian, the factorization, and all residual evaluations
+stay f64 — the per-restart residual re-targeting absorbs the
+coefficient noise.
 """
 
 import jax.numpy as jnp

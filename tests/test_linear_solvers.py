@@ -120,8 +120,7 @@ def test_sparse_cg():
     rng = np.random.default_rng(4)
     b = rng.normal(size=150)
 
-    # host-driven chunked solve (fixed-trip jitted chunks; the
-    # while_loop form compiles pathologically on the TPU toolchain)
+    # host-driven chunked solve (fixed-trip jitted chunks)
     s = SparseCG(asm, jnp.asarray(data), block=3)
     x = np.asarray(s.solve(jnp.asarray(b)))
     assert np.linalg.norm(A @ x - b) / np.linalg.norm(b) < 1e-10
@@ -189,10 +188,10 @@ def test_blocked_tri_solve():
 
 
 def test_blocked_chol_sharded_mesh():
-    """Multi-chip direct solve: factorization AND substitutions run
+    """Multi-device direct solve: factorization AND substitutions run
     with the factor row-sharded over the 8-device mesh — per-device
-    factor memory is n^2/8, extending the single-chip HBM ceiling of
-    ``DeviceCholSolver`` (measured on this toolchain: the blocked
+    factor memory is n^2/8, extending the single-device memory ceiling
+    of ``DeviceCholSolver`` (the blocked
     forms keep the factor sharded and move one (n, block) panel per
     step, where a plain ``solve_triangular`` on a sharded L makes
     GSPMD all-gather the whole factor per solve).  Sharded result must

@@ -1,6 +1,6 @@
 """Scan-mode order loop (taylor_scan) must reproduce the unrolled
 engine exactly — one lax.scan body replaces O(order) traced orders
-(the compile-size fix for large TPU programs)."""
+(compile time independent of the order)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -498,7 +498,7 @@ class TestPolymat:
 class TestNumpyEval:
     """numpy_eval must reproduce the jitted graph bit-for-bit (up to
     strict-f64 roundoff) — it is the strict-IEEE residual oracle used by
-    the ANM drivers on accuracy-relaxed backends (TPU-emulated f64)."""
+    the ANM drivers, independent of any backend's compile flags."""
 
     def _check(self, fn, x, tol=5e-14):
         import jax
@@ -572,8 +572,8 @@ class TestNumpyEval:
 def test_svd3_no_overflow_near_orthogonal():
     """Jacobi rotation must stay finite when the Gram off-diagonal is
     denormal-tiny: the classical tau=(aqq-app)/(2 apq) form overflows
-    there, which the TPU's double-double f64 emulation turns into NaN
-    (observed on 4/19552 rest-state elements of the bar mesh).  The
+    there, which downstream arithmetic turns into NaN (seen on a few
+    rest-state elements of the bar mesh).  The
     overflow-free form keeps exactness on identity-like inputs."""
     import numpy as np
     import jax.numpy as jnp
@@ -595,8 +595,8 @@ def test_svd3_no_overflow_near_orthogonal():
 
     # regime |d| >> |apq| with denormal apq: well-separated column norms
     # plus 1e-300 off-diagonal coupling.  Here the CLASSICAL tau =
-    # (aqq-app)/(2*apq) truly overflows (checked below), which the TPU
-    # f64 emulation turns into NaN; the overflow-free form stays exact.
+    # (aqq-app)/(2*apq) truly overflows (checked below), which can turn
+    # into NaN downstream; the overflow-free form stays exact.
     ms2 = np.broadcast_to(np.diag([2.0, 1.0, 0.5]), (4, 3, 3)).copy()
     ms2 += rng.standard_normal((4, 3, 3)) * 1e-312
     # demonstrate the test hits the overflow regime of the old formula
